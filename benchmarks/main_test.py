@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Console benchmark harness — the reference MainTest, TPU-native.
+"""Console benchmark harness — the reference MainTest, on the device.
 
 Mirrors VectorIndex.MainTest/Program.cs:
 
@@ -16,6 +16,7 @@ Usage:
   python benchmarks/main_test.py [hdf5_file] [index_csv_out]
 """
 
+import os
 import sys
 import time
 
@@ -72,4 +73,11 @@ def main():
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from vector_database_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

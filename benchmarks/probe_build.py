@@ -75,4 +75,9 @@ def main():
 
 
 if __name__ == "__main__":
+    from vector_database_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

@@ -1,8 +1,8 @@
 """Microbenchmark the build's per-level [N]-wide primitives on hardware.
 
-The build probe showed ~1.0 s/level at 10M rows regardless of D (8 vs 96)
-and regardless of stats subsampling — the cost is [N]-wide machinery.
-This times each suspect primitive in isolation (chained inside one jit,
+The build's per-level cost is [N]-wide machinery (independent of D and
+of stats subsampling where it was first measured). This times each
+suspect primitive in isolation (chained inside one jit,
 inputs varied per iteration to defeat CSE) to find where the second goes.
 
 Usage: python benchmarks/probe_ops.py [N] [D] [S]
@@ -114,4 +114,9 @@ def main():
 
 
 if __name__ == "__main__":
+    from vector_database_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Probe: the per-level [N] permutation-inversion scatter (84 ms/level at
-10M, the largest remaining fused-build line item — CLAUDE.md).
+"""Probe: the per-level [N] permutation inversion of the fused build.
 
 The partition computes dest[p] (where position p's row moves) and needs
 src = dest^-1 (src[i] = which row lands at i) to GATHER the permuted
@@ -18,6 +17,7 @@ one-for-one. Run on the real chip: `python benchmarks/probe_perm.py`.
 """
 
 import json
+import os
 import sys
 import time
 
@@ -71,4 +71,11 @@ def main():
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from vector_database_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     main()

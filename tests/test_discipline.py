@@ -2,13 +2,13 @@
 
 The reference's "race detection" story is documented single-threadedness
 plus ``checked`` arithmetic (MemoryRangeStore.cs:5, IndexBuilder.cs:99-104).
-The TPU-native equivalents asserted here:
+The equivalents asserted here:
 
 - **no tracer leaks**: the builders and search paths are pure under jit
   (``jax.checking_leaks``);
 - **no recompile churn**: repeated same-shape calls hit the jit cache
-  exactly once — compile-per-call is this environment's analogue of a
-  pathological lock (20s-5min remote compiles);
+  exactly once — compile-per-call is this engine's analogue of a
+  pathological lock;
 - **donation discipline**: ``donate=True`` actually releases the input
   buffer (the builder's in-place permutation claim is real, not aliased);
 - **no NaNs**: the whole build+search pipeline is NaN-free under
@@ -104,7 +104,7 @@ def test_rerank_gathers_in_bounds(small):
 
 
 def test_parallel_serving_cache_reuse():
-    """Round-2 verdict Weak#1: the mesh serving paths must not retrace
+    """The mesh serving paths must not retrace
     per call. Second same-shape call hits the jit cache for forest_knn,
     knn_global, and search_global (radius is an argument, not a capture)."""
     from vector_database_tpu.parallel import (

@@ -137,7 +137,7 @@ def test_empty_document():
 
 
 def test_incremental_combined_view():
-    """Round-2 verdict Weak#5: a mutation must not trigger an O(store)
+    """A mutation must not trigger an O(store)
     combined rebuild — new rows join an exact-scanned delta; results stay
     exact; the rebuild fires only past the delta threshold."""
     store, data = make_store(n=120, docs=2)
@@ -265,7 +265,7 @@ def test_knn_batch_min_probe_batch_guard():
     """Pruning is a BATCH mode (docs/serving.md: probes tuned at q=4096
     collapse to 0.39 recall at q=256): min_probe_batch routes
     under-filled batches to the FULL packed scan — answers identical to
-    packed=True without probes (round-4 verdict #4)."""
+    packed=True without probes."""
     import pytest
 
     from vector_database_tpu.utils import datasets

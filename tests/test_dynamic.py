@@ -191,7 +191,7 @@ def test_add_empty_is_noop():
 
 
 def test_knn_packed_matches_exact_and_caches_per_epoch():
-    """packed=True serves through the Pallas kernel from a per-epoch
+    """packed=True serves through the packed bucket scan from a per-epoch
     pack: results match the exact scan (bucketed-scan accuracy model),
     the pack is REUSED while the index is unmutated, and any mutation
     invalidates it so removed rows can never be served."""
@@ -383,7 +383,7 @@ def test_knn_packed_min_probe_batch_guard():
     0.39 recall at q=256 — docs/serving.md): min_probe_batch routes
     under-filled calls to the FULL packed scan. Verified by program
     accounting — the guarded call must reuse the full-scan program, not
-    compile a pruned one (round-4 verdict #4)."""
+    compile a pruned one."""
     import pytest
 
     from vector_database_tpu.ops.pallas_knn import pallas_scan_knn_packed

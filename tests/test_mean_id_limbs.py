@@ -1,8 +1,8 @@
-"""Exact mean-id tie statistics beyond 16M rows (round-2 verdict #6).
+"""Exact mean-id tie statistics beyond 16M rows.
 
 The reference keeps segment id sums in an Int128 (Stats.cs:26) — uncapped.
-The TPU equivalent keeps them in base-2^b int32 limb sums; round 2 fixed
-b=7 (valid to ~16M rows). ``id_limb_plan`` now narrows b with n, so the
+This engine keeps them in base-2^b int32 limb sums; a fixed b=7 is valid
+to ~16M rows. ``id_limb_plan`` narrows b with n, so the
 machinery is exact for any int32-indexable dataset. These tests prove the
 narrow-limb arithmetic exact directly (big-int oracle) and prove a narrow
 plan builds the IDENTICAL tree to the default plan.

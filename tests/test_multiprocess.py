@@ -1,6 +1,6 @@
 """Real multi-controller execution: 2 OS processes, Gloo collectives.
 
-Round-2 verdict Missing#2 / Next#5: the multi-host path must be exercised
+The multi-host path must be exercised
 past the single-process no-op. This spawns two genuine ``jax.distributed``
 processes (CPU backend, 2 virtual devices each → a 4-device global mesh)
 and runs the whole multi-controller story — process-local ingest, a

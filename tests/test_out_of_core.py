@@ -91,7 +91,7 @@ def test_spill_dir(tmp_path):
 
 
 def test_spilled_save_load_roundtrip(tmp_path):
-    """Round-2 verdict Missing#3: a spilled index must save, reload, and
+    """A spilled index must save, reload, and
     serve under the O(node-tables) RAM bound — big arrays stream to .npy
     on save and come back memory-mapped on load."""
     from vector_database_tpu import exact_knn
@@ -429,7 +429,7 @@ class _FailingStore:
 
 
 def test_from_store_checkpoint_resume(tmp_path):
-    """Round-3 verdict weak#5: a crash mid-build must not restart from
+    """A crash mid-build must not restart from
     chunk 0. Interrupt after chunk 1 of 3, resume with the same
     arguments, and the result must be BIT-identical to an uninterrupted
     build — node tables, packed blocks, vectors, and query answers."""
@@ -515,8 +515,7 @@ def test_from_store_completed_checkpoint_is_noop(tmp_path):
 def test_chunked_knn_min_probe_batch_guard(tmp_path):
     """ChunkedIndex.knn's small-batch pruning guard: calls with fewer
     queries than min_probe_batch serve the full scan (answers identical
-    to the unpruned call); min_probe_batch without probes raises
-    (round-4 verdict #4)."""
+    to the unpruned call); min_probe_batch without probes raises."""
     import pytest
 
     rng = np.random.RandomState(153)
@@ -549,7 +548,7 @@ def test_chunked_knn_min_probe_batch_guard(tmp_path):
 
 def test_from_store_checkpoint_data_mismatch(tmp_path):
     """Resuming a checkpoint against DIFFERENT data must raise, not mix
-    chunks of two datasets (advisor round-4 low#2): same-length store
+    chunks of two datasets: same-length store
     with different content trips the chunk-0 fingerprint; a grown store
     trips the recorded length."""
     import pytest

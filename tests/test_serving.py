@@ -66,11 +66,13 @@ def test_empty_batch():
 
 def test_default_q_tile_never_exceeds_batch():
     """A q_tile above the batch would pad every wave up (up to 32x the
-    MXU work); the default must track the configured batch."""
+    scan work); the default must track the configured batch, rounded up
+    to the GPU kernel's 16-query tile."""
     srv, _ = make()  # batch=64
     assert srv._q_tile == 64
     srv2, _ = make(seed=177)
-    assert PackedServer(srv2._pack, k=5, batch=3)._q_tile == 8
+    assert PackedServer(srv2._pack, k=5, batch=3)._q_tile == 16
+    assert PackedServer(srv2._pack, k=5, batch=40)._q_tile == 48
     assert PackedServer(srv2._pack, k=5, batch=2048)._q_tile == 512
 
 
@@ -127,8 +129,8 @@ def test_packed_server_probes_mode():
 
 def test_min_probe_batch_guards_underfilled_waves():
     """Waves with fewer real queries than min_probe_batch must be served
-    by the FULL scan (pruned small batches lose recall — docs/serving.md
-    latency table), while full waves keep the pruned program."""
+    by the FULL scan (pruned small batches lose recall), while full waves
+    keep the pruned program."""
     import pytest
 
     from vector_database_tpu.ops.pallas_knn import pack_database
@@ -163,7 +165,7 @@ def test_min_probe_batch_guards_underfilled_waves():
     with pytest.raises(ValueError):
         PackedServer(pack, k=5, batch=64, min_probe_batch=64)
     # a guard no wave can satisfy would silently disable pruning for all
-    # traffic (advisor round-4 low#1) — reject it up front
+    # traffic — reject it up front
     with pytest.raises(ValueError, match="exceeds batch"):
         PackedServer(
             pack, k=5, batch=64, probes=2, min_probe_batch=128

@@ -1,17 +1,17 @@
-"""vector_database_tpu — a TPU-native vector index engine.
+"""vector_database_tpu — a vector index engine for accelerators (JAX).
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 nesterovsky-bros/vector-database (variance-split binary space partitioning
 vector index; see /root/reference):
 
 - ``build_index`` — level-synchronous BSP tree builder. One pass per tree
-  level over the HBM-resident ``[N, D]`` vector matrix: segmented
+  level over the device-resident ``[N, D]`` vector matrix: segmented
   per-dimension mean/variance reduction, alternating max/min-stdev split
   dimension selection, and a stable segmented partition. This is the
   set-oriented formulation of the reference's ``dbo.BuildIndex``
   (DDL.sql:44-202) rather than the sequential tree walker
   (VectorIndex/IndexBuilder.cs:23-213), because whole-level reductions are
-  what a TPU wants.
+  what an accelerator runs well.
 - ``search`` — batched frontier traversal: thousands of queries walk the
   tree in lockstep (masked dual-branch descent, the batched generalization
   of the recursive CTE in DDL.sql:234-295), followed by an exact-distance
@@ -24,7 +24,7 @@ vector index; see /root/reference):
 - ``DocumentStore`` — the document-scoped persistence layer
   (dbo.Document/dbo.Text/dbo.TextIndex + IndexDocument + Search,
   DDL.sql:204-419).
-- ``parallel`` — multi-chip build and query over a ``jax.sharding.Mesh``:
+- ``parallel`` — multi-device build and query over a ``jax.sharding.Mesh``:
   data-axis sharded stats with ``psum`` merge (one global tree built in
   parallel), sharded queries with all-gather top-k merge.
 """

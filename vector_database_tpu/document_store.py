@@ -1,4 +1,4 @@
-"""Document-scoped vector store — the SQL-engine layer, TPU-native.
+"""Document-scoped vector store — the SQL-engine layer, on the device.
 
 Re-design of the reference's SQL product (reference DDL.sql):
 
@@ -55,7 +55,7 @@ class DocumentStore:
         # DELTA (served by exact scan) instead of invalidating the main
         # index; the main only rebuilds when the delta crosses a
         # threshold — the DynamicIndex main+delta shape, so one add_text
-        # no longer costs an O(store) rebuild (round-2 verdict Weak#5).
+        # no longer costs an O(store) rebuild.
         self._combined = None
         self._delta: List[Tuple[np.ndarray, int, int]] = []
         self.combined_builds = 0  # observability: full rebuild count
@@ -366,25 +366,25 @@ class DocumentStore:
     ):
         """Batched k-NN over the whole store (or one document):
         ``(doc_ids [Q,k], text_ids [Q,k], sq_dists [Q,k])`` with -1/+inf
-        padding. One streaming MXU scan — the serving path. ``exact=True``
+        padding. One streaming matmul scan — the serving path. ``exact=True``
         (default) uses f32 scores with exact per-block top-k;
         ``exact=False`` the faster bf16 bucketed scan (measured recall@10:
         0.992 on the vendored digits fixture, 0.986-0.99 on 1M-10M x 96
-        clustered — benchmarks/recall_qps.py, README benchmark table).
+        clustered — benchmarks/recall_qps.py).
 
         ``packed=True`` (store-wide serving only — incompatible with
-        ``doc_id``): serve the combined index through the Pallas kernel
+        ``doc_id``): serve the combined index through the packed bucket scan
         (``pack_database`` once per combined rebuild, cached;
         ``pallas_scan_knn_packed`` per batch) — same accuracy model as
-        ``exact=False`` at kernel rate; ``probes=`` adds the pruned
+        ``exact=False``; ``probes=`` adds the pruned
         high-QPS scan. Delta rows (texts indexed since the last combined
         rebuild) are still merged exactly, so fresh writes are always
         visible.
 
         **Pruning is a BATCH mode** — probes calibrated at q=4096 and
         served at small batches collapse (measured at 10M x 96,
-        probes=256: recall 0.960 at q=4096 but 0.39 at q=256 —
-        docs/serving.md latency table). ``min_probe_batch`` guards it:
+        probes=256: recall 0.960 at q=4096 but 0.39 at q=256).
+        ``min_probe_batch`` guards it:
         calls with fewer queries serve the FULL packed scan instead
         (matching ``PackedServer(min_probe_batch=)``)."""
         from vector_database_tpu.ops.scan_knn import scan_knn
@@ -410,7 +410,7 @@ class DocumentStore:
         if packed and exact:
             # an explicit exact=True alongside packed=True would be
             # silently downgraded to the bucketed-scan accuracy model —
-            # refuse, like the doc_id/allowed_ids guards (advisor, r3)
+            # refuse, like the doc_id/allowed_ids guards
             raise ValueError(
                 "packed=True serves the bf16 bucketed-scan accuracy "
                 "model and cannot honor exact=True; drop one of them"

@@ -4,7 +4,7 @@ The reference project began as a binary search index identifying an object
 from a set of objects by a set of boolean properties (reference
 README.md:4-15: "a matrix of [objects x properties] with true or false in
 cells"), later generalized to float vectors ("float can be represented as a
-set of bits", README.md:18). This module is that original mode, TPU-native:
+set of bits", README.md:18). This module is that original mode, on the device:
 
 - properties are encoded ±1 and indexed with the same variance-split BSP
   tree (a boolean dimension's variance is p(1-p), so max-variance selection
@@ -13,7 +13,7 @@ set of bits", README.md:18). This module is that original mode, TPU-native:
 - bits are also kept packed (uint32 words) for compact storage/export;
 - Hamming distance maps exactly onto squared L2 over ±1 encodings
   (``L2² = 4·hamming``), so the float search machinery — pruned traversal +
-  exact rerank, and the MXU brute-force scan — is reused bit-exactly
+  exact rerank, and the matmul brute-force scan — is reused bit-exactly
   (every quantity involved is a small integer, exact in float32).
 """
 
@@ -111,7 +111,7 @@ class BoolMatrixIndex:
         return bsp_locate(self._index, self._signed(props))
 
     def knn_hamming(self, props, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact k-nearest by Hamming distance via one MXU scan
+        """Exact k-nearest by Hamming distance via one matmul scan
         (``[Q, N]`` ±1 dot products)."""
         q = self._signed(props)
         d2 = pairwise_sq_dists(q, self._index.vectors)

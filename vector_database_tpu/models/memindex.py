@@ -310,7 +310,7 @@ class MemoryVectorIndex:
         shortcut nodes keep their plane with an empty leaf on the missing
         side. Returns ``(index, records)`` — search results' ``rows`` index
         into ``records``. The batched lockstep search then runs on device
-        (``vector_database_tpu.search``), the TPU path for thousands of
+        (``vector_database_tpu.search``), the device path for thousands of
         concurrent queries against an incrementally-built trie.
         """
         import jax.numpy as jnp

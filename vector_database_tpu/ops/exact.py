@@ -1,9 +1,10 @@
 """Exact brute-force search — the recall oracle and the QPS floor.
 
 The reference tests validate every index against a brute-force linear scan
-(MempryVectorIndex.Tests/MemoryVectorIndexTests.cs:161-163). On TPU the
-"linear scan" is an MXU matmul and is itself a very fast baseline: for
-normalized/angular data, ``Q·N·D`` bf16 FLOPs ride the systolic array.
+(MempryVectorIndex.Tests/MemoryVectorIndexTests.cs:161-163). On an
+accelerator the "linear scan" is a matmul and is itself a very fast
+baseline: for normalized/angular data, ``Q·N·D`` FLOPs ride the tensor
+cores.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import jax.numpy as jnp
 def pairwise_sq_dists(queries: jax.Array, vectors: jax.Array) -> jax.Array:
     """Squared L2 distances ``[Q, N]`` via the matmul expansion.
 
-    ``|q - v|^2 = |q|^2 + |v|^2 - 2 q.v`` — one big MXU contraction instead
-    of a memory-bound broadcast-subtract.
+    ``|q - v|^2 = |q|^2 + |v|^2 - 2 q.v`` — one big matmul instead of a
+    memory-bound broadcast-subtract.
 
-    Precision note: TPU's *default* f32 matmul runs as a single bf16 pass
-    (measured dot error up to ~3e-2 on O(1) embeddings — enough to scramble
-    neighbor ranks inside tight clusters). This is the exactness ORACLE, so
-    it pins ``Precision.HIGHEST`` (true f32 accumulation).
+    Precision note: a *default*-precision f32 matmul may run in reduced
+    precision (TF32 on a GPU, one bf16 pass elsewhere — errors large
+    enough to scramble neighbor ranks inside tight clusters). This is the
+    exactness ORACLE, so it pins ``Precision.HIGHEST`` (true f32).
     """
     qn = jnp.sum(queries * queries, axis=1, keepdims=True)
     vn = jnp.sum(vectors * vectors, axis=1)
@@ -62,12 +63,11 @@ def exact_knn(vectors, queries, *, k: int, block: int | None = None):
     Above ``block`` rows the distance matrix is streamed in ``[Q, block]``
     tiles under one ``lax.scan`` with a running top-k merge — the full
     ``[Q, N]`` matrix at 10M x 1024 queries is 40 GB and cannot
-    materialize in HBM; the streamed form peaks at the tile. Identical
+    materialize in device memory; the streamed form peaks at the tile. Identical
     results (exact f32 distances, HIGHEST-precision contraction).
 
     ``block=None`` scales the tile with the batch: the f32 ``[Q, block]``
-    tile is capped at ~2 GiB (a [4096, 1M] tile is 15 GB and OOMs a
-    16 GB chip — measured at 10M x 96, q=4096).
+    tile is capped at ~2 GiB (a [4096, 1M] tile would be 15 GB).
     """
     if block is None:
         q_rows = int(jnp.shape(queries)[0]) or 1

@@ -1,6 +1,6 @@
 """One level of the level-synchronous BSP index build.
 
-This is the TPU formulation of the reference's per-level work:
+This is the device formulation of the reference's per-level work:
 
 - the segmented per-dimension mean/variance reduction is the set-oriented
   statistics statement of ``dbo.BuildIndex`` (reference DDL.sql:118-152) and
@@ -24,7 +24,7 @@ the same ``O(N · log N · D)`` total as the reference.
 The tie-break id statistic ``mean_id`` is exact: per-segment id sums are
 kept in base-2^b int32 limbs (7-bit up to ~16M rows; the caller passes a
 narrower plan from ``sorted_build.id_limb_plan`` beyond — uncapped) and
-divided with exact long division — the TPU-native
+divided with exact long division — the int32
 equivalent of the reference's Int128 ``Stats.IdN`` (Stats.cs:26), with no
 wide-integer or float64 path.
 """
@@ -57,9 +57,9 @@ def level_math(
 
     With ``axis_name`` set (inside ``shard_map`` over a mesh axis holding a
     row shard of the matrix), the per-segment partial statistics are merged
-    with ``psum`` over ICI, so every shard sees identical
+    with ``psum`` across the mesh, so every shard sees identical
     global stats and the partition stays purely local — one tree, built
-    data-parallel. This is the TPU equivalent of the distributed build the
+    data-parallel. This is the mesh form of the distributed build the
     reference never had (SURVEY.md §2.2: psum of per-dimension partial
     ``(n, Σ, M2)`` stats).
 

@@ -1,16 +1,17 @@
-"""Streaming exact k-NN: blocked MXU scan with a running top-k.
+"""Streaming exact k-NN: blocked matmul scan with a running top-k.
 
 At serving dimensionality (D ≈ 96+) a single-plane BSP descent prunes
 almost nothing (the curse of dimensionality: an ε that captures k neighbors
 overlaps nearly every split plane — measured: >99% of leaves visited on
-clustered 96-d data). On TPU the speed-of-light design for exact k-NN is a
-bfloat16 MXU scan of the whole matrix — IF the [Q, N] distance matrix is
+clustered 96-d data). On an accelerator the speed-of-light design for
+exact k-NN is a bfloat16 matmul scan of the whole matrix — IF the [Q, N]
+distance matrix is
 never materialized. This op blocks the database axis with ``lax.scan`` and
 carries a running [Q, k] top-k:
 
   traffic  = N·D (read the database once, bf16)
-  FLOPs    = 2·Q·N·D on the MXU
-  HBM temp = [Q, block] per step
+  FLOPs    = 2·Q·N·D on the tensor cores
+  temp     = [Q, block] per step
 
 The distances are ``|q|² + |v|² − 2 q·v``; the cross term runs in bfloat16
 (inputs are normalized embeddings; error ~1e-2 relative) with float32
@@ -51,7 +52,7 @@ def scan_knn(
     Rows index into ``vectors``; the database is padded to a multiple of
     ``block`` internally (padded rows get +inf distance).
 
-    With ``precise=False`` the scan runs two-stage: a bfloat16 MXU pass
+    With ``precise=False`` the scan runs two-stage: a bfloat16 matmul pass
     selects an ``oversample * k`` shortlist, then a float32 rerank of the
     shortlist restores exact ranking (bf16 rounding only loses a true
     neighbor if it falls outside the 4k shortlist — tie-tight clusters
@@ -104,8 +105,9 @@ def scan_knn(
     def step(carry, xs):
         best_d, best_i = carry  # [Q, k_scan], [Q, k_scan]
         vblk, vnblk, b = xs
-        # TPU's default f32 matmul is a single bf16 pass; the precise path
-        # must request true f32 (HIGHEST). The bf16 path takes the default.
+        # a default-precision f32 matmul may run in reduced precision; the
+        # precise path requests true f32 (HIGHEST). The bf16 path takes
+        # the default.
         cross = jax.lax.dot_general(
             qc, vblk.T, (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
@@ -115,9 +117,8 @@ def scan_knn(
         rows = b * block + row_in_block
         valid = rows < n
         d2 = jnp.where(valid[None, :], d2, jnp.inf)
-        # Block-local shortlist. lax.top_k over 64k columns lowers to a
-        # full sort on TPU (measured 10-20x slower than the matmul);
-        # instead reduce each block to `buckets` candidates with a fused
+        # Block-local shortlist. Rather than a lax.top_k over every
+        # column of the block, reduce each block to `buckets` candidates with a fused
         # one-pass bucket-min — the i-th true neighbor is lost only if two
         # of the true top-k collide in the same (block, bucket), so recall
         # is governed by total buckets (blocks * buckets >> k^2). The
@@ -133,8 +134,6 @@ def scan_knn(
             # buckets collapse when the database is stored similarity-
             # sorted (e.g. a BSPIndex's leaf-major layout puts all of a
             # query's neighbors in one bucket); interleaving spreads them.
-            # Reducing over the non-minor axis is also the cheap direction
-            # on TPU (no cross-lane shuffles).
             width = block // buckets
             d2b = d2.reshape(q, width, buckets)
             arg = jnp.argmin(d2b, axis=1).astype(jnp.int32)

@@ -52,7 +52,7 @@ split moves no rows at all). Tie handling affects tree shape only, never the
 search contract. Pass ``tie_break="mean_id"`` for exact reference parity:
 segment id-sums are computed exactly (base-2^b limb cumsums + long
 division — 7-bit limbs to ~16M rows, narrowing automatically to 1-bit at
-~1B, see ``id_limb_plan`` — the TPU-native equivalent of the reference's
+~1B, see ``id_limb_plan`` — the int32 equivalent of the reference's
 Int128 ``Stats.IdN``, Stats.cs:26) and plane ties compare
 ``id > floor(sum_ids / count)`` (IndexBuilder.cs:113-123, DDL.sql:100-110).
 
@@ -80,7 +80,7 @@ def id_limb_plan(n_total: int) -> tuple:
     -division accumulator ``r * 2^bits + digit`` with ``r < cnt <=
     n_total`` stays below 2^31 (``n_total * 2^bits``). 7-bit limbs to
     ~16.7M rows, narrowing to 1-bit limbs at ~1.07B — any int32-id
-    dataset. This is what lifts the round-2 16M cap on
+    dataset. This is what lifts a 16M-row cap on
     ``tie_break="mean_id"`` (the reference's Int128 ``IdN``, Stats.cs:26,
     is uncapped): narrower limbs just add [N]-int cumsum passes per
     level, only in mean-id mode.
@@ -204,8 +204,8 @@ def _sorted_build_impl(
             jnp.zeros((s_max,), jnp.int32).at[0].set(n_valid),  # seg_count
             # Node arrays carry s_max slack so the per-level emission is a
             # dynamic_update_slice WINDOW write at node_base (scatters with
-            # computed indices lower to per-level [s_max]-key SORTS on
-            # TPU). Lanes past a level's live segments write garbage into
+            # computed indices can lower to per-level [s_max]-key
+            # sorts). Lanes past a level's live segments write garbage into
             # slots a LATER level owns and overwrites first (windows only
             # extend forward; slot t's owner is the last level whose
             # window covers t), and the slack guarantees the window never
@@ -268,8 +268,6 @@ def _sorted_build_impl(
 
             return at(idx_hi) - at(idx_lo)
 
-        # TPU layouts pad the minor dim to 128 lanes, so chunks narrower
-        # than 128 waste memory (a [N, 32] f32 buffer occupies 128 lanes).
         # Keep each cumsum at natural width, never concatenate x with x²,
         # and force the prefix transients to be *sequential* with an
         # optimization barrier so each one dies before the next allocates.
@@ -322,10 +320,9 @@ def _sorted_build_impl(
         if mean_id_ties:
             limb_mask = (1 << id_limb_bits) - 1
             pid_active = jnp.where(active, pid, 0)
-            # Boundary limb prefixes via a stacked block table (measured
-            # 41 ms vs 115 ms per level at 10M, probe_meanid.py): the cost
-            # of the naive form is not the [N] cumsums (15.5 ms) but the
-            # 2*limbs scalar boundary-gather passes. Instead: per-limb
+            # Boundary limb prefixes via a stacked block table
+            # (probe_meanid.py): the cost of the naive form is not the [N]
+            # cumsums but the 2*limbs scalar boundary-gather passes. Instead: per-limb
             # block sums over 8-row blocks + [nb] cumsums, packed BESIDE
             # the raw id blocks into ONE [nb+1, 8+limbs] table, so each
             # boundary set costs two row-gathers total (per the measured
@@ -381,8 +378,8 @@ def _sorted_build_impl(
             mean_id = _exact_mean_id(limb_sums, g_cnt, id_limb_bits)
 
         # Per-row lookups of per-segment values are the build's hottest
-        # cost (measured ~60% of wall time as a dozen separate [S]->[N]
-        # gathers); a row-gather of a packed [S, k] table costs the same
+        # cost (as a dozen separate [S]->[N] gathers they dominated the
+        # wall time); a row-gather of a packed [S, k] table costs the same
         # as ONE scalar gather, so each phase does a single jnp.take.
         packA_cols = [split_dim, seg_start]
         if mean_id_ties:
@@ -400,10 +397,10 @@ def _sorted_build_impl(
         # mean on its own split dimension — the plane stored in the node is
         # exactly the plane used to partition.
         # The value is extracted with a one-hot mask-reduce, NOT a
-        # take_along_axis: N scalar column-gathers measured 136 ms at 10M
-        # on v5e vs 7.6 ms for the streaming [N, D] mask-multiply-sum
-        # (exact: one nonzero term per row). The single largest line item
-        # of the level loop.
+        # take_along_axis: the streaming [N, D] mask-multiply-sum reads
+        # the matrix once in order, where a gather makes N scalar column
+        # reads (exact: one nonzero term per row; the two have not been
+        # timed against each other on the H100).
         value = jnp.sum(
             pvec
             * (
@@ -547,7 +544,7 @@ def _sorted_build_impl(
         )
         # invert the (unique-index) permutation: sort_key_val states the
         # sort XLA would lower the scatter to anyway, minus the scatter
-        # plumbing — measured 55 ms vs 163 ms at 10M (probe_perm.py)
+        # plumbing (probe_perm.py compares the forms)
         src = jax.lax.sort_key_val(dest, pos)[1]
 
         new_seg = jnp.where(

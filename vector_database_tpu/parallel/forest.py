@@ -1,12 +1,12 @@
 """Sharded forest: the N-axis (database size) scaling story.
 
 SURVEY.md §5: the reference's only scaling axis is data volume on one
-machine (the mmap store); the TPU equivalent is sharding the vector count
+machine (the mmap store); the device equivalent is sharding the vector count
 across the mesh. Each shard owns a contiguous block of rows and its own BSP
 tree; a query fans out to every shard in SPMD (one ``shard_map``), each
 device walks its local tree and reranks its local candidates, and the
-per-shard top-k results are merged into a global top-k — the all-gather
-rides ICI (SURVEY.md §2.2's "allgather-top-k merge").
+per-shard top-k results are merged into a global top-k — one all-gather
+(SURVEY.md §2.2's "allgather-top-k merge").
 
 Exactness is preserved: every member of the global top-k within ``radius``
 is in its own shard's top-k, so the union of shard results contains the

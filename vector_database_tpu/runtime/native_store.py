@@ -1,12 +1,12 @@
-"""ctypes bindings for the native (C++) vector store + chunked TPU ingest.
+"""ctypes bindings for the native (C++) vector store + chunked device ingest.
 
 The shared library is compiled from ``vstore.cpp`` on first use (g++ is part
 of the toolchain; no pip packages involved) and cached next to the source.
 
 ``NativeVectorStore`` is the out-of-core ingest path: vectors live in a
-memory-mapped file on the host; ``to_device`` streams them to HBM in chunks,
-overlapping host reads with device transfers (JAX dispatch is async), the
-TPU replacement for the reference's 100k-row chunked HDF5 feed
+memory-mapped file on the host; ``to_device`` streams them to the device in
+chunks, overlapping host reads with device transfers (JAX dispatch is
+async), the replacement for the reference's 100k-row chunked HDF5 feed
 (Program.cs:221-260) + mmap temp store (FileRangeStore.cs).
 """
 

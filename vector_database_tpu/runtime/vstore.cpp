@@ -1,6 +1,6 @@
 // Native out-of-core vector store: memory-mapped, append-only float32 rows.
 //
-// This is the host-runtime tier of the framework — the TPU-native
+// This is the host-runtime tier of the framework — the
 // re-design of the reference's storage layer:
 //   - the single memory-mapped temp file with bump-allocated regions
 //     (reference VectorIndex/FileRangeStore.cs:18-43, 127-165) becomes a

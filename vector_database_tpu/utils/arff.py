@@ -4,8 +4,8 @@ The reference's test suite ingests a real clustering dataset in ARFF
 format (2d-10c.arff via ArffTools, MempryVectorIndex.Tests/
 MemoryVectorIndexTests.cs:116-134, 306-339) and min-max-normalizes each
 attribute into [-1, 1] before indexing (the ``Dataset`` helper,
-MemoryVectorIndexTests.cs:238-304). This module is that pipeline for the
-TPU framework: a dependency-free parser for numeric ARFF relations (the
+MemoryVectorIndexTests.cs:238-304). This module is that pipeline for this
+framework: a dependency-free parser for numeric ARFF relations (the
 only kind the reference consumes) plus the same normalization.
 
 The repo vendors a real fixture at ``tests/data/digits-64.arff`` (UCI
