@@ -1,62 +1,38 @@
 #!/usr/bin/env python
-"""Compile the GPU bucket-scan kernel at real widths, compare it with the
-plain XLA scan, and time tile configurations.
+"""Time tile configurations of the GPU bucket-scan kernel.
 
-For each shape (default 9.99M x 96, 1M x 768, 100k x 1536; clustered,
-unit-normalized, generated on the device from ``--seed``): compile the
-serving program on both scan routes, print its ``memory_analysis()``,
-compare the ``[Q, m]`` bucket minima of the two routes and the rows they
-serve. At the first shape, time the scan alone for each ``--tiles``
-configuration (BQ,BM,warps,stages) and the whole serving call for both
-routes, full and pruned: median of ``--reps`` batches, each ending in
-``block_until_ready``, every shape warmed first.
+At one shape (default 9.99M x 96, q = 4096; clustered, unit-normalized,
+generated on the device from ``--seed`` as ``chip_smoke.py`` does) the
+scan alone is compiled for each ``--tiles`` configuration
+(BQ,BM,warps,stages), checked bitwise against the default
+configuration's bucket minima, and timed: median of ``--reps`` batches,
+each ending in ``block_until_ready``, every configuration warmed first.
+The kernel-vs-reference comparison and the timing of both scan routes
+through the server are ``chip_smoke.py``'s phases kernel_ref and routes.
 
-    python benchmarks/probe_scan_tiles.py [--shapes 9990000x96,...]
+    python benchmarks/probe_scan_tiles.py [--shape 9990000x96] [--tiles ...]
 
-Needs a GPU; prints one JSON line per measurement.
+Needs a GPU; prints one JSON line per configuration.
 """
 
 import argparse
-import functools
 import json
 import os
-import subprocess
 import sys
-import time
 from unittest import mock
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-
-def _clustered(key, n, d, c):
-    import jax
-    import jax.numpy as jnp
-
-    k1, k2, k3 = jax.random.split(key, 3)
-    centers = jax.random.uniform(k1, (c, d), jnp.float32) * 2 - 1
-    assign = jax.random.randint(k2, (n,), 0, c)
-    v = centers[assign] + 0.05 * jax.random.normal(k3, (n, d), jnp.float32)
-    return v / jnp.linalg.norm(v, axis=1, keepdims=True)
-
-
-def _median_ms(fn, reps):
-    fn().block_until_ready()
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn().block_until_ready()
-        ts.append(time.perf_counter() - t0)
-    return 1e3 * float(np.median(ts))
+import chip_smoke
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--shapes", default="9990000x96,1000000x768,100000x1536")
+    ap.add_argument("--shape", default="9990000x96")
     ap.add_argument("--q", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--probes", type=int, default=256)
     ap.add_argument("--tiles", default="128,64,4,3;128,128,8,3;256,64,8,3;"
                     "64,128,4,3;128,64,4,4;128,64,8,2")
     ap.add_argument("--seed", type=int, default=0)
@@ -68,125 +44,45 @@ def main():
     from vector_database_tpu.ops import pallas_knn as pk
     from vector_database_tpu.utils.compile_cache import enable_compile_cache
 
-    enable_compile_cache()
     dev = jax.devices()[0]
-    if os.environ.get("VDB_REHEARSE") == "1":  # CPU dry run, tiny shapes
-        orig = pk._scan_triton
-        pk._scan_triton = lambda *a, interpret, **k: orig(
-            *a, interpret=True, **k)
-    elif dev.platform != "gpu":
+    if dev.platform != "gpu":
         sys.exit(f"needs a GPU, found {dev.platform}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip() if dev.platform == "gpu" else "none"
+    enable_compile_cache()
+    print(json.dumps({"device": dev.device_kind,
+                      "nvidia_smi": chip_smoke.nvidia_smi()}), flush=True)
 
-    print(json.dumps({"device": dev.device_kind, "nvidia_smi": smi}),
-          flush=True)
+    n, d = (int(x) for x in args.shape.split("x"))
+    vecs, queries = chip_smoke.clustered(jax.random.PRNGKey(args.seed), n,
+                                         args.q, d)
+    pack = pk.pack_database(vecs)
+    del vecs
+    qb = jnp.pad(queries, ((0, 0), (0, pack.vb.shape[1] - d))).astype(
+        jnp.bfloat16)
 
-    q_tile = 512
-    key = jax.random.PRNGKey(args.seed)
-    for si, shape in enumerate(args.shapes.split(",")):
-        n, d = (int(x) for x in shape.split("x"))
-        c = max(64, n // 1000)
-        kd, kq = jax.random.split(jax.random.fold_in(key, si))
-        vecs = _clustered(kd, n, d, c)
-        queries = _clustered(kq, args.q, d, c)
-        t0 = time.perf_counter()
-        pack = pk.pack_database(vecs)
-        pack.vb.block_until_ready()
-        pack_s = time.perf_counter() - t0
-        nb = pack.vb.shape[0]
-        qb = jnp.pad(queries, ((0, 0), (0, pack.vb.shape[1] - d))).astype(
-            jnp.bfloat16)
+    def scan():
+        # a fresh jit each time: the tile constants are read at trace time
+        f = jax.jit(lambda vn, vb, qb: pk._bucket_scan(
+            vn, vb, qb, None, None, bits=pack.bits, m=pack.m,
+            q_tile=chip_smoke.Q_TILE, interpret=False))
+        return f, np.asarray(f(pack.vn, pack.vb, qb))
 
-        def scan_fn(route):
-            with mock.patch.object(pk, "scan_route", lambda p=None: route):
-                f = jax.jit(lambda vn, vb, qb: pk._bucket_scan(
-                    vn, vb, qb, None, None, bits=pack.bits, m=pack.m,
-                    q_tile=q_tile, interpret=False))
-                comp = f.lower(pack.vn, pack.vb, qb).compile()
-            return comp, comp(pack.vn, pack.vb, qb)
-
-        def serve_fn(route, probes=None):
-            kw = dict(k=10, q_tile=q_tile)
-            if probes is not None:
-                kw.update(probes_max=probes)
-            with mock.patch.object(pk, "scan_route", lambda p=None: route):
-                t0 = time.perf_counter()
-                if probes is None:
-                    f = jax.jit(functools.partial(
-                        pk._scan_knn_packed_impl, **kw))
-                    comp = f.lower(pack, queries).compile()
-                    out = comp(pack, queries)
-                else:
-                    f = jax.jit(functools.partial(
-                        pk._scan_knn_packed_rt_entry, **kw))
-                    comp = f.lower(pack, queries, jnp.int32(probes)).compile()
-                    out = comp(pack, queries, jnp.int32(probes))
-                jax.block_until_ready(out)
-            return comp, out, time.perf_counter() - t0, comp
-
-        f_x, acc_x = scan_fn("xla")
-        f_t, acc_t = scan_fn("triton")
-        ax, at = np.asarray(acc_x), np.asarray(acc_t)
-        tol = 2.0 ** -(23 - pack.bits)
-        rel = np.abs(ax - at) / np.maximum(np.abs(ax), 1e-30)
-        ok_score = bool(np.all(np.abs(ax - at) <= tol * np.abs(ax) + 1e-5))
-        s_x, o_x, cx, comp_x = serve_fn("xla")
-        s_t, o_t, ct, comp_t = serve_fn("triton")
-        rx, rt = np.asarray(o_x[0]), np.asarray(o_t[0])
-        same = rx == rt
-        dx, dt = np.asarray(o_x[1]), np.asarray(o_t[1])
+    _, ref = scan()
+    for cfg in args.tiles.split(";"):
+        bq, bm, nw, ns = (int(x) for x in cfg.split(","))
+        with mock.patch.multiple(pk, _BQ=bq, _BM=bm, _NUM_WARPS=nw,
+                                 _NUM_STAGES=ns):
+            try:
+                f, acc = scan()
+            except Exception as e:  # a configuration the compiler refuses
+                print(json.dumps({"tiles": cfg, "refused": repr(e)[:200]}),
+                      flush=True)
+                continue
+        ms = chip_smoke.median_ms(
+            lambda: f(pack.vn, pack.vb, qb).block_until_ready(), args.reps)
         print(json.dumps({
-            "shape": shape, "nb": nb, "bits": pack.bits,
-            "pack_s": pack_s,
-            "score_max_rel": float(rel.max()), "score_tol": tol,
-            "scores_within_tol": ok_score,
-            "rows_same_frac": float(same.mean()),
-            "dist_equal_where_rows_same": bool(
-                np.array_equal(dx[same], dt[same])),
-            "compile_s": {"xla": cx, "triton": ct},
-            "memory_triton": str(comp_t.memory_analysis()),
-            "memory_xla": str(comp_x.memory_analysis()),
+            "shape": args.shape, "q": args.q, "tiles": cfg,
+            "scan_ms": ms, "equal_to_default": bool(np.array_equal(acc, ref)),
         }), flush=True)
-        if si == 0:
-            timings = {}
-            timings["scan_xla_ms"] = _median_ms(
-                lambda: f_x(pack.vn, pack.vb, qb), args.reps)
-            for cfg in args.tiles.split(";"):
-                bq, bm, nw, ns = (int(x) for x in cfg.split(","))
-                with mock.patch.multiple(pk, _BQ=bq, _BM=bm, _NUM_WARPS=nw,
-                                         _NUM_STAGES=ns):
-                    try:
-                        f_c, acc_c = scan_fn("triton")
-                    except Exception as e:  # a config the compiler refuses
-                        timings[f"scan_triton_{cfg}"] = repr(e)[:200]
-                        continue
-                    eq = bool(np.array_equal(np.asarray(acc_c), at))
-                    timings[f"scan_triton_{cfg}_ms"] = _median_ms(
-                        lambda: f_c(pack.vn, pack.vb, qb), args.reps)
-                    timings[f"scan_triton_{cfg}_equal_default"] = eq
-            # whole serving call, both routes, full and pruned (A B B A)
-            p_x = serve_fn("xla", args.probes)[0]
-            p_t = serve_fn("triton", args.probes)[0]
-            pj = jnp.int32(args.probes)
-            for name, f in (("full_xla", lambda: s_x(pack, queries)[0]),
-                            ("full_triton", lambda: s_t(pack, queries)[0]),
-                            ("full_triton_2", lambda: s_t(pack, queries)[0]),
-                            ("full_xla_2", lambda: s_x(pack, queries)[0]),
-                            ("pruned_xla", lambda: p_x(pack, queries, pj)[0]),
-                            ("pruned_triton",
-                             lambda: p_t(pack, queries, pj)[0]),
-                            ("pruned_triton_2",
-                             lambda: p_t(pack, queries, pj)[0]),
-                            ("pruned_xla_2",
-                             lambda: p_x(pack, queries, pj)[0])):
-                timings[f"serve_{name}_ms"] = _median_ms(f, args.reps)
-            print(json.dumps({"shape": shape, "q": args.q,
-                              "probes": args.probes, **timings}), flush=True)
-        del vecs, pack, acc_x, acc_t, o_x, o_t
-    print(json.dumps({"done": True}))
 
 
 if __name__ == "__main__":

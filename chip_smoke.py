@@ -16,7 +16,8 @@ unit-normalised. Phases, each printed as one JSON line with its seconds:
 4. serve_pruned — ``probes=`` at two values; ``probes >= num_blocks``
                   must return the full scan's rows exactly
 5. kernel_ref   — the GPU scan kernel against the plain XLA scan at
-                  9.99M x 96 (full and pruned), 1M x 768, 100k x 1536
+                  9.99M x 96 (full and pruned), 1M x 768, 3M x 768 (past
+                  2^31 packed elements; full and pruned), 100k x 1536
 6. routes       — both scan routes timed through ``PackedServer``, full
                   and pruned, in turns A B B A
 7. mutable      — ``DynamicIndex`` over the corpus, +10k / -10k rows
@@ -465,13 +466,22 @@ def run_one(args, jax, jnp, timer):
     tq = test[:BATCH]
     compare_routes(pack, tq, f"{n}x96")
     compare_routes(pack, tq, f"{n}x96", probes=probes[-1])
-    for wn, wd in ((1_000_000, 768), (100_000, 1536)):
+    for wn, wd in ((1_000_000, 768), (3_000_000, 768), (100_000, 1536)):
+        # 3M x 768 packs past 2^31 bf16 elements (64-bit kernel offsets)
+        big = wn * wd > 2**31
         if _REHEARSE:
             wn //= 100
-        wv, wq = clustered(jax.random.PRNGKey(args.seed + wd), wn, BATCH,
-                           wd)
-        compare_routes(pack_database(wv), wq, f"{wn}x{wd}")
+        wv, wq = clustered(jax.random.PRNGKey(args.seed + wd + wn), wn,
+                           BATCH, wd)
+        wpack = pack_database(wv)
         del wv
+        compare_routes(wpack, wq, f"{wn}x{wd}")
+        if big:
+            check(_REHEARSE or wpack.vb.size > 2**31,
+                  f"{wn}x{wd}: pack is not past 2^31 elements")
+            compare_routes(wpack, wq, f"{wn}x{wd}",
+                           probes=max(1, wpack.vb.shape[0] // 4))
+        del wpack
     phase_routes(pack, test, probes[-1], args.reps)
 
     del pack, index
@@ -489,7 +499,10 @@ def run_four(args, jax, jnp):
     same four row shards (each shard scanned on its own, merged top-k), in
     >= 99.9% of slots, and a recall against the exact oracle no lower
     than one card's unsharded full scan (each shard has its own m buckets,
-    so the sharded scan collides less than the unsharded one)."""
+    so the sharded scan collides less than the unsharded one). The same
+    holds for the pruned scan (``probes=``, against one card's pruned
+    scans of the shards); with every block probed it must return exactly
+    the full sharded scan's rows."""
     from vector_database_tpu import build_index_fused, exact_ball, exact_knn
     from vector_database_tpu import locate, pack_database
     from vector_database_tpu import pallas_scan_knn_packed
@@ -525,19 +538,25 @@ def run_four(args, jax, jnp):
     one_rows = np.asarray(pallas_scan_knn_packed(
         pack, test, k=K, q_tile=Q_TILE)[0])
     r_one = recall(one_rows, truth)
-    del pack
     n_loc = -(-n // 4)
-    parts_r, parts_d = [], []
+    nb_loc = -(-n_loc // pack.block)
+    p = max(1, nb_loc // 4)  # pruned: a quarter of each shard's blocks
+    del pack
+    parts = {"full": ([], []), "pruned": ([], [])}
     for s in range(4):
         part = pack_database(lm[s * n_loc: min((s + 1) * n_loc, n)])
-        r, d = pallas_scan_knn_packed(part, test, k=K, q_tile=Q_TILE)
-        parts_r.append(jnp.where(r >= 0, r + s * n_loc, -1))
-        parts_d.append(d)
+        for mode, kw in (("full", {}), ("pruned", dict(probes=p))):
+            r, d = pallas_scan_knn_packed(part, test, k=K, q_tile=Q_TILE,
+                                          **kw)
+            parts[mode][0].append(jnp.where(r >= 0, r + s * n_loc, -1))
+            parts[mode][1].append(d)
         del part
-    ref_rows = np.asarray(merge_topk(jnp.stack(parts_r),
-                                     jnp.stack(parts_d), k=K)[0])
+    ref_rows, ref_pruned = (
+        np.asarray(merge_topk(jnp.stack(rs), jnp.stack(ds), k=K)[0])
+        for rs, ds in (parts["full"], parts["pruned"]))
     log("one_card", t0, recall_at_10=r_one,
-        per_shard_recall_at_10=recall(ref_rows, truth))
+        per_shard_recall_at_10=recall(ref_rows, truth),
+        per_shard_pruned_recall_at_10=recall(ref_pruned, truth))
 
     mesh = make_mesh()
     t0 = time.perf_counter()
@@ -553,11 +572,20 @@ def run_four(args, jax, jnp):
         recall_at_10=r_four, one_card_recall_at_10=r_one)
 
     t0 = time.perf_counter()
-    p = max(1, sdb.vb.shape[1] // 4)
-    prow = sharded_scan_knn(sdb, test, k=K, q_tile=Q_TILE, probes=p)[0]
+    check(sdb.vb.shape[1] == nb_loc, f"{sdb.vb.shape[1]} blocks per shard")
+    prow = np.asarray(sharded_scan_knn(sdb, test, k=K, q_tile=Q_TILE,
+                                       probes=p)[0])
+    same_p = float((prow == ref_pruned).mean())
+    check(same_p >= 0.999, f"pruned sharded scan: only {same_p:.5f} of "
+          "slots equal one card's pruned scans of the same shards")
+    # every block through the runtime-probes program: the full scan's rows
+    arow = np.asarray(sharded_scan_knn(sdb, test, k=K, q_tile=Q_TILE,
+                                       probes=nb_loc, probes_max=nb_loc)[0])
+    check(np.array_equal(arow, srows), "sharded probes >= blocks per "
+          f"shard: {(arow != srows).sum()} slots differ from the full scan")
     log("sharded_scan_pruned", t0, probes_per_shard=p,
-        blocks_per_shard=int(sdb.vb.shape[1]),
-        recall_at_10=recall(prow, truth))
+        blocks_per_shard=nb_loc, rows_same_as_one_card_shards=same_p,
+        recall_at_10=recall(prow, truth), all_blocks_equal_to_full=True)
     del sdb, lm
 
     t0 = time.perf_counter()

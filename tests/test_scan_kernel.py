@@ -147,6 +147,24 @@ def test_kernel_rejects_shapes_it_cannot_tile():
                         m=pack.m, q_tile=8, interpret=True)
 
 
+def test_kernel_accepts_packs_over_2_31_elements():
+    """A pack past 2^31 bf16 elements (10M x 768: 1,221 blocks) goes to
+    the kernel whole; its compiled form is checked at 3M x 768 by
+    ``chip_smoke.py``. Traced abstractly, so nothing is allocated."""
+    nb, d_pad, block, q = 1221, 768, 8192, 512
+    assert nb * d_pad * block > 2**31
+    sds = jax.ShapeDtypeStruct
+    out = jax.eval_shape(
+        lambda vn, vb, qb: pk._scan_triton(
+            vn, vb, qb, None, None, bits=11, m=4096, q_tile=q,
+            interpret=False),
+        sds((nb, 1, block), jnp.float32),
+        sds((nb, d_pad, block), jnp.bfloat16),
+        sds((q, d_pad), jnp.bfloat16),
+    )
+    assert (out.shape, out.dtype) == ((q, 4096), jnp.float32)
+
+
 def test_d_chunks_and_d_align():
     assert pk._d_chunks(96) == ((0, 64), (64, 32))
     assert pk._d_chunks(16) == ((0, 16),)
